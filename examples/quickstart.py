@@ -1,9 +1,10 @@
 """zvdb-tpu quickstart: build, search, persist, serve — all four engines.
 
-Run:  python examples/quickstart.py        (TPU if available, else CPU)
+Run:  python examples/quickstart.py   (the GPU if JAX finds one; JAX_PLATFORMS=cpu for the CPU)
 """
 import os
 import sys
+import tempfile
 
 import numpy as np
 
@@ -36,8 +37,9 @@ _, ids = hnsw.search(q, K, ef_search=64)
 print(f"hnsw   recall@{K}: {recall(ids):.3f}")
 
 hnsw.insert(rng.standard_normal(D).astype(np.float32))   # incremental insert
-hnsw.save("/tmp/quickstart_hnsw.npz")
-reloaded = HNSW.load("/tmp/quickstart_hnsw.npz")
+tmp = tempfile.mkdtemp()
+hnsw.save(os.path.join(tmp, "quickstart_hnsw.npz"))
+reloaded = HNSW.load(os.path.join(tmp, "quickstart_hnsw.npz"))
 assert len(reloaded) == N + 1
 
 # --- CAGRA (the fast graph engine: single layer, anchor-seeded beams) ------
@@ -46,7 +48,7 @@ cagra.build(x)
 _, ids = cagra.search(q, K, ef_search=16)
 print(f"cagra  recall@{K}: {recall(ids):.3f}")
 
-# --- brute-force engine (TPU-KNN style) ------------------------------------
+# --- brute-force engine (dense matmul scoring + approx top-k) --------------
 flat = FlatIndex(FlatConfig(dim=D, precision="high"), capacity=N)
 flat.add(x)
 _, ids = flat.search(q, K, approx=True)

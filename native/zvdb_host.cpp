@@ -1,6 +1,6 @@
 // zvdb-tpu native host runtime: dataset loading + exact-kNN oracle.
 //
-// TPU-native-equivalent of the reference's native (Zig) host code paths
+// Equivalent of the reference's native (Zig) host code paths
 // (SURVEY.md §2.2): the device compute path is JAX/XLA/Pallas; the host-side
 // runtime pieces — bulk dataset parsing and the CPU brute-force ground-truth
 // oracle used by the recall harness — are C++ for throughput, exposed via a

@@ -1,6 +1,6 @@
 """CAGRA-style single-layer graph engine + cluster-kNN construction.
 
-The graph build is all-MXU (no beam loops): spilled k-means blocks ->
+The graph build is all-matmul (no beam loops): spilled k-means blocks ->
 per-block brute force -> diversity prune -> reverse edges -> long-range links
 (index/knn_graph.py). The same machinery powers HNSW's oneshot bulk build.
 Contracts mirror the reference surface (src/hnsw.zig: insert/search; empty

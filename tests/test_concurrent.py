@@ -2,7 +2,7 @@
 
 The reference serializes everything behind a global mutex
 (src/hnsw.zig:74,195) and its concurrency test only interleaves inserts
-(src/test_hnsw.zig:154-209). The TPU engines promise more: mutations are
+(src/test_hnsw.zig:154-209). The batched engines promise more: mutations are
 serialized behind host-side locks, while searches are lock-free reads of an
 immutable pytree snapshot — so a search racing an insert must always see
 SOME consistent prior state: valid ids, finite scores for returned rows,

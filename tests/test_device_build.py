@@ -3,8 +3,8 @@ host-numpy path, no host round-trip.
 
 Round-3 regression: HNSW.build pulled jax-array corpora to the host before
 dispatching (hnsw.py build np.asarray), and the IVF <500k device path pulled
-oversized-cluster rows through per-shape gathers that minted a fresh remote
-compile each (measured 100 s cold at 100k on TPU). Device corpora now route
+oversized-cluster rows through per-shape gathers that minted a fresh compile
+each. Device corpora now route
 through the oneshot device branch / the batched device split.
 """
 import jax

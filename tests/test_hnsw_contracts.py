@@ -1,7 +1,7 @@
-"""The reference's 10 behavioral test contracts, ported to the TPU engine.
+"""The reference's 10 behavioral test contracts, ported to the batched engine.
 
 Source contracts: reference src/test_hnsw.zig (SURVEY.md §4 table). Each test
-cites the reference test it mirrors. Adaptations for the TPU engine follow
+cites the reference test it mirrors. Adaptations for the batched engine follow
 SURVEY.md §4: "Concurrent Access" maps to thread-safe host API + batched-build
 equivalence; "Different Data Types" maps to dtype coverage (f32/bf16);
 "Memory Leaks" maps to state being a pure pytree (no hidden host allocs).
@@ -88,7 +88,7 @@ def test_edge_cases_duplicates_and_k_gt_n():
 
 def test_memory_model():
     # reference src/test_hnsw.zig:128-152 (leak discipline; index owns copies).
-    # TPU analog: index state is a pure pytree; the input buffer is not aliased.
+    # Batched analog: index state is a pure pytree; the input buffer is not aliased.
     idx = make(dim=4)
     p = np.ones(4, np.float32)
     idx.insert(p)
@@ -143,7 +143,7 @@ def test_stress_smoke(rng):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_different_data_types(rng, dtype):
     # reference src/test_hnsw.zig:239-273 instantiates HNSW(i32)/HNSW(f64);
-    # the TPU analog is storage-dtype coverage
+    # the batched analog is storage-dtype coverage
     x = rng.standard_normal((500, 16)).astype(np.float32)
     idx = make(dim=16, dtype=dtype)
     idx.build(x)

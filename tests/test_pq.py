@@ -82,7 +82,7 @@ def test_pure_codes_recall_scales_with_subspaces(data):
     r = {}
     for ns in (8, 32):
         # n_codes pinned to 256: this test measures 8-bit code resolution
-        # scaling (the default is now the 4-bit/pallas winner)
+        # scaling (the default is 4-bit codes)
         idx = PQFlatIndex(PQConfig(dim=32, n_sub=ns, n_codes=256,
                                    refine="none", train_sample=4096))
         idx.build(x)
@@ -105,7 +105,7 @@ def test_metrics(data, metric):
 def test_self_hit_and_get(data):
     # 8-bit codes: self-hit through the refine pool is near-perfect; the
     # 4-bit default on this tiny dsub=4 fixture has many bit-identical rows
-    # whose exact rescores tie (covered by test_pq4_pallas_engine_end_to_end)
+    # whose exact rescores tie (covered by test_pq4_packed_surface)
     x, _ = data
     idx = PQFlatIndex(PQConfig(dim=32, n_sub=8, n_codes=256,
                                train_sample=4096))
@@ -236,7 +236,6 @@ def test_bytes_per_vector_accounting():
     # classic one-byte codes
     cfg = PQConfig(dim=128, n_sub=16, n_codes=256)
     assert cfg.bytes_per_vector == 16 + 4 + 256 + 4
-    assert cfg.scan == "xla"      # auto resolves off the kernel path
 
 
 # ---------------------------------------------------------------- OPQ
@@ -334,7 +333,7 @@ def test_opq_metrics(data, metric):
     assert _recall(idx.search(q, 10)[1], gt) > 0.9
 
 
-# ------------------------------------------------------- 4-bit / Pallas ADC
+# ------------------------------------------------------- 4-bit codes
 
 
 def _pq4(dim=32, **kw):
@@ -380,194 +379,10 @@ def test_pq4_packed_surface(data, tmp_path):
     assert (np.asarray(i) < len(old)).all()
 
 
-def test_pallas_pq_int8_precision_close(data):
-    """scan_precision='int8' (int8 MXU path): bin scores within the
-    documented ~2% LUT-quantization envelope of the high-precision fold,
-    same bins surviving."""
-    import jax.numpy as jnp
-    from zvdb_tpu.ops import pq as PQ
-    from zvdb_tpu.ops.pallas_pq import pq_scan_bins
-
-    x, q = data
-    idx = PQFlatIndex(_pq4(refine="none"))
-    idx.build(x)
-    st = idx.state
-    qs = q[:16].astype(np.float32)
-    lut = PQ.adc_lut(jnp.asarray(qs), st.codebooks)
-    kw = dict(l_bins=128, chunk=512, per_bin=1, interpret=True)
-    sh, ih = map(np.asarray, pq_scan_bins(
-        lut, st.codes, st.norms, precision="high", **kw))
-    si, ii = map(np.asarray, pq_scan_bins(
-        lut, st.codes, st.norms, precision="int8", **kw))
-    env = 0.04 * np.abs(np.asarray(lut)).max(axis=(1, 2))[:, None] + 1e-3
-    ok = np.abs(si - sh) <= env
-    assert ok.mean() > 0.98, ok.mean()
-    # a large majority of bins pick the same winner (ties may flip)
-    assert (ii == ih).mean() > 0.85, (ii == ih).mean()
-
-
-def test_pallas_pq_per_bin2_exact(data):
-    """per_bin=2 bin fold: for every bin, the kernel's two kept rows are
-    exactly the two smallest decoded ADC scores among the rows mapping to
-    that bin (row % L within each chunk) — verified against a brute-force
-    per-bin sort of the decoded corpus. The first L columns must equal the
-    per_bin=1 output."""
-    import jax.numpy as jnp
-    from zvdb_tpu.ops import pq as PQ
-    from zvdb_tpu.ops.pallas_pq import pq_scan_bins
-
-    x, q = data
-    idx = PQFlatIndex(_pq4(refine="none"))
-    idx.build(x)
-    st = idx.state
-    n = len(x)
-    qs = q[:16].astype(np.float32)
-    lut = PQ.adc_lut(jnp.asarray(qs), st.codebooks)
-    L, chunk = 128, 512
-    s2, i2 = map(np.asarray, pq_scan_bins(
-        lut, st.codes, st.norms, l_bins=L, chunk=chunk, precision="high",
-        per_bin=2, interpret=True))
-    s1, i1 = map(np.asarray, pq_scan_bins(
-        lut, st.codes, st.norms, l_bins=L, chunk=chunk, precision="high",
-        per_bin=1, interpret=True))
-    np.testing.assert_array_equal(i2[:, :L], i1)
-    np.testing.assert_allclose(s2[:, :L], s1)
-    # oracle: exact decoded scores, two best per bin
-    dec = np.asarray(PQ.decode(
-        PQ.unpack_nibbles(np.asarray(st.codes).T, 8)[:n], st.codebooks))
-    nm = np.asarray(st.norms)[:n]
-    rows = np.arange(n)
-    bins = rows % L
-    for b in range(0, len(qs), 5):
-        sc = nm - 2.0 * dec @ qs[b]
-        for bin_id in range(0, L, 17):
-            members = rows[bins == bin_id]
-            order = members[np.argsort(sc[members], kind="stable")]
-            want = set(order[:2].tolist())
-            got = {int(i2[b, bin_id]), int(i2[b, L + bin_id])}
-            # tie-tolerant: accept any rows scoring within fp noise of want
-            wmax = sc[order[1]] if len(order) > 1 else sc[order[0]]
-            assert all(sc[g] <= wmax + 1e-4 * abs(wmax) + 1e-5
-                       for g in got), (b, bin_id, got, want)
-
-
-def test_pallas_pq_kernel_matches_xla_scan(data):
-    """Fused ADC kernel (interpret mode) vs the exact XLA decode-scan: the
-    kernel's surrogate scores must match the decoded-corpus scores bitwise-
-    close for the ids it returns, and selection recall must beat the bin
-    collision bound."""
-    import jax.numpy as jnp
-    from zvdb_tpu.index.pqflat import _pq_scan
-    from zvdb_tpu.ops import pq as PQ
-    from zvdb_tpu.ops.pallas_pq import pq_scan_topk
-
-    x, q = data
-    idx = PQFlatIndex(_pq4(refine="none"))
-    idx.build(x)
-    st = idx.state
-    qs = q.astype(np.float32)
-    lut = PQ.adc_lut(jnp.asarray(qs), st.codebooks)
-    ks, ki = pq_scan_topk(lut, st.codes, st.norms, 10, l_bins=256,
-                          chunk=512, precision="high", interpret=True)
-    xs, xi = _pq_scan(st, jnp.asarray(qs), 10, "l2", 100000, False,
-                      0.95, "highest", packed=True)
-    ks, ki, xs, xi = map(np.asarray, (ks, ki, xs, xi))
-    # score-threshold selection recall: fraction of kernel results scoring
-    # at least as well as the exact scan's k-th score. (Id sets are
-    # tie-ambiguous — 4-bit codes make many corpus rows bit-identical — and
-    # a small loss is expected from bin collisions: bound 0.965 at L=256.)
-    tol = 1e-3 * np.abs(xs[:, -1:])
-    rec = float(np.mean(ks <= xs[:, -1:] + tol))
-    assert rec > 0.94
-    # kernel surrogate scores are the true decoded scores (high precision)
-    dec = np.asarray(PQ.decode(
-        PQ.unpack_nibbles(np.asarray(st.codes).T, 8)[: len(x)],
-        st.codebooks))
-    for b in range(0, len(qs), 37):
-        ids = ki[b][ki[b] >= 0]
-        want = (np.asarray(st.norms)[ids]
-                - 2.0 * dec[ids] @ qs[b])
-        np.testing.assert_allclose(ks[b][ki[b] >= 0], want, rtol=1e-4,
-                                   atol=1e-4)
-
-
-def test_pq4_pallas_engine_end_to_end(data):
-    """PQFlatIndex(scan='pallas') on CPU interpret: recall with refine rerank
-    ~0.9 (this tiny 16-code corpus has many bit-identical rows, and equal-
-    scored duplicates shadow each other inside a bin — at production scale
-    with n_sub=32 the code space is 16^32 and only the L/k collision bound
-    applies), deletes and filters honored through the kernel's norm bias."""
-    x, q = data
-    _, gt = exact_ground_truth(x, q, 10)
-    idx = PQFlatIndex(_pq4(scan="pallas", rerank=16, pallas_chunk=1024,
-                           l_bins=512))
-    idx.build(x)
-    assert _recall(idx.search(q, 10)[1], gt) > 0.88
-    idx.remove([int(gt[0][0])])
-    assert int(gt[0][0]) not in np.asarray(idx.search(q[:1], 10)[1]).tolist()
-    _, i = idx.search(q[:10], 5, allowed=np.arange(200))
-    i = np.asarray(i)
-    assert ((i < 200) | (i == -1)).all() and (i >= 0).any()
-
-
-def test_pq4_opq_pallas(data):
-    """OPQ + 4-bit + pallas path compose: scan in rotated space, refine in
-    original space."""
-    x, q = data
-    _, gt = exact_ground_truth(x, q, 10)
-    idx = PQFlatIndex(_pq4(scan="pallas", opq=True, rerank=16,
-                           pallas_chunk=1024, l_bins=512))
-    idx.build(x)
-    assert _recall(idx.search(q, 10)[1], gt) > 0.88
-
-
 def test_pq4_config_validation():
     with pytest.raises(ValueError):
-        PQConfig(dim=32, n_sub=8, n_codes=256, scan="pallas")  # needs <=16
+        PQConfig(dim=32, n_sub=8, n_codes=300)            # codes are uint8
     with pytest.raises(ValueError):
-        PQConfig(dim=48, n_sub=12, n_codes=16, scan="pallas")  # n_sub % 8
+        PQConfig(dim=48, n_sub=10, n_codes=16)            # dim % n_sub
     with pytest.raises(ValueError):
-        PQConfig(dim=32, n_sub=8, n_codes=16, scan="pallas",
-                 pallas_chunk=300)  # chunk % l_bins
-
-
-def test_pq4_segmented_pool_scales_with_n(data):
-    """seg_rows: each corpus segment folds into its own bin pool, so the
-    candidate pool width scales with N (the 30M lesson: a fixed 2048-slot
-    pool read 0.9594 recall at 1M but 0.77 at 30M — rows-per-bin grew 30x).
-    Contracts: (a) pool width = n_seg * per_bin * L, (b) the global-pool
-    winners are a SUBSET of the segmented pool (segmentation only relaxes
-    bin competition), (c) shared ids carry identical scores, (d) end-to-end
-    search agrees with the unsegmented config on ids present in both."""
-    import jax.numpy as jnp
-    from zvdb_tpu.ops import pq as PQ
-    from zvdb_tpu.ops.pallas_pq import pq_scan_bins
-
-    x, q = data
-    idx = PQFlatIndex(_pq4(refine="none"))
-    idx.build(x)
-    st = idx.state
-    qs = q[:16].astype(np.float32)
-    lut = PQ.adc_lut(jnp.asarray(qs), st.codebooks)
-    L, chunk = 128, 512
-    kw = dict(l_bins=L, chunk=chunk, precision="high", per_bin=2,
-              interpret=True)
-    s0, i0 = map(np.asarray, pq_scan_bins(
-        lut, st.codes, st.norms, seg_rows=0, **kw))
-    s1, i1 = map(np.asarray, pq_scan_bins(
-        lut, st.codes, st.norms, seg_rows=1024, **kw))
-    n_seg = -(-(-(-len(x) // chunk) * chunk) // 1024)
-    assert s1.shape[1] == n_seg * 2 * L
-    assert s0.shape[1] == 2 * L
-    for b in range(len(qs)):
-        g0 = {int(i): float(s) for i, s in zip(i0[b], s0[b]) if i >= 0}
-        g1 = {int(i): float(s) for i, s in zip(i1[b], s1[b]) if i >= 0}
-        assert set(g0).issubset(set(g1))
-        for i, s in g0.items():
-            np.testing.assert_allclose(g1[i], s, rtol=1e-5, atol=1e-4)
-
-
-def test_pq4_seg_rows_validation():
-    with pytest.raises(ValueError):
-        PQConfig(dim=32, n_sub=8, n_codes=16, scan="pallas",
-                 pallas_chunk=1024, seg_rows=1500)  # seg % chunk
+        PQConfig(dim=32, n_sub=8, n_codes=16, refine="int4")

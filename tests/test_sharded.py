@@ -1,5 +1,5 @@
 """Sharded index on a virtual 8-device CPU mesh (SURVEY.md §4: the standard way
-to test a pjit mesh without a TPU pod)."""
+to test a mesh without several cards)."""
 import numpy as np
 import pytest
 

@@ -3,8 +3,8 @@
 Mirrors tests/test_sharded_ivf.py for the scale-tier engine: recall floor
 at a matched global probe budget, global-id/merge invariants, incremental
 insert routing, delete + filtered-search semantics, get()/save/load, and
-compact. The grouped ADC kernel runs in interpret mode off-TPU (same gate
-as the single-chip engine)."""
+compact. The grouped ADC scan is the single-device engine's
+(ops/pq_grouped.py)."""
 import os
 
 import numpy as np

@@ -1,10 +1,10 @@
-"""zvdb-tpu: a TPU-native vector search engine.
+"""zvdb-tpu: a batched vector search engine in JAX.
 
 Brand-new implementation of the capabilities of the reference `zvdb` Zig library
 (an in-memory HNSW index — reference src/zvdb.zig:1, src/hnsw.zig:8-247),
-re-architected for TPU: flat int32 neighbor tables traversed by batched beam
-search, MXU matmul distances, bulk batched graph construction, and pjit/shard_map
-sharding across device meshes.
+re-architected for accelerators: flat int32 neighbor tables traversed by
+batched beam search, matmul distances, bulk batched graph construction, and
+shard_map sharding across device meshes.
 
 Public surface (the reference exports exactly one symbol, `HNSW` —
 src/zvdb.zig:1; we keep that plus the engine pieces around it):
@@ -41,7 +41,6 @@ __all__ = [
     "SearchConfig",
     "FlatConfig",
     "SearchServer",
-    "make_hybrid_mesh",
     "relative_contrast",
     "suggest_engine",
 ]
@@ -50,9 +49,8 @@ __all__ = [
 def __getattr__(name):
     # sharded engines import lazily (they touch jax.sharding / mesh state)
     if name in ("ShardedHNSW", "ShardedFlat", "ShardedIVF", "ShardedCagra",
-                "ShardedPQFlat", "ShardedIVFPQ", "make_mesh",
-                "make_hybrid_mesh"):
-        from .parallel.mesh import make_hybrid_mesh, make_mesh
+                "ShardedPQFlat", "ShardedIVFPQ", "make_mesh"):
+        from .parallel.mesh import make_mesh
         from .parallel.sharded import ShardedHNSW
         from .parallel.sharded_cagra import ShardedCagra
         from .parallel.sharded_flat import ShardedFlat
@@ -68,7 +66,6 @@ def __getattr__(name):
             "ShardedPQFlat": ShardedPQFlat,
             "ShardedIVFPQ": ShardedIVFPQ,
             "make_mesh": make_mesh,
-            "make_hybrid_mesh": make_hybrid_mesh,
         }[name]
     raise AttributeError(name)
 

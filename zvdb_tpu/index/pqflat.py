@@ -1,13 +1,13 @@
 """PQ-flat index: product-quantized brute-force scan + optional exact refine.
 
 The memory-scaling member of the engine family (BASELINE config 5 is a 100M
-corpus; f32 storage is 51.2 GB/chip, int8 12.8 GB — neither fits a 16 GB v5e
-chip with working memory, while PQ codes at n_sub=16 are 1.6 GB). Search:
+corpus; f32 storage is 51.2 GB and int8 12.8 GB, while PQ codes at n_sub=16
+are 1.6 GB). Search:
 
     lax.scan over code tiles:
         decode tile (one-hot matmul, ops/pq.py — gather-free)
-        -> dense MXU scoring vs queries (asymmetric ADC: exact query, decoded
-           corpus) -> hardware approx top-k -> running merge
+        -> dense matmul scoring vs queries (asymmetric ADC: exact query,
+           decoded corpus) -> approx top-k -> running merge
     optional refine pass: gather rerank*k candidate rows from the int8/float
     refine store, exact f32 rescore, final top-k.
 
@@ -34,7 +34,7 @@ import numpy as np
 from ..ops import distance as D
 from ..ops import pq as PQ
 from ..ops import topk as T
-from ..utils.config import PQConfig
+from ..utils.config import PQConfig, config_from_dict
 
 
 class PQState(NamedTuple):
@@ -42,8 +42,7 @@ class PQState(NamedTuple):
 
     codes: jax.Array      # [cap, S] uint8 codes; nibble-packed configs
                           # (cfg.packed: n_codes <= 16) store TRANSPOSED
-                          # packed bytes [S//2, cap] so the Pallas ADC scan
-                          # streams lane-aligned chunks (ops/pallas_pq.py)
+                          # packed bytes [S//2, cap]
     norms: jax.Array      # [cap] f32: ||decoded row||^2 for l2, 0 for
                           # dot/cosine; +inf = uningested/tombstoned (the
                           # validity bias — same convention as FlatState)
@@ -131,13 +130,13 @@ def _pq_scan(
     state: PQState, qs: jax.Array, k: int, metric: str, tile_n: int,
     approx: bool, recall_target: float, precision: str, packed: bool = False,
 ):
-    """Pass 1: tiled decode + MXU score + running top-k over PQ codes.
+    """Pass 1: tiled decode + matmul score + running top-k over PQ codes.
 
     Returns (surrogate scores [B, k], ids [B, k]); invalid slots id -1,
     score +inf. Same scan/merge skeleton as flat._search, with the tile's
     vectors produced by the one-hot decode instead of read from storage.
     packed: codes are the transposed nibble layout [S//2, cap] (unpacked
-    per tile — the XLA reference path for pallas-scan configs).
+    per tile).
     """
     cap = state.codes.shape[1] if packed else state.codes.shape[0]
     tile = min(tile_n, cap)
@@ -154,11 +153,7 @@ def _pq_scan(
             n_tiles, tile, -1)
     norm_t = jnp.pad(state.norms, (0, pad_cap - cap),
                      constant_values=jnp.inf).reshape(n_tiles, tile)
-    prec = {
-        "highest": jax.lax.Precision.HIGHEST,
-        "high": jax.lax.Precision.HIGH,
-        "default": jax.lax.Precision.DEFAULT,
-    }[precision]
+    prec = D.matmul_precision(precision)
 
     init = (
         jnp.full((b, k), jnp.inf, jnp.float32),
@@ -192,18 +187,12 @@ def _pq_scan(
     return best_s, best_i
 
 
-@functools.partial(
-    jax.jit, static_argnames=("k", "cfg", "approx", "interpret"),
-)
-def _pq_search(
-    state: PQState, q: jax.Array, k: int, cfg, approx: bool,
-    interpret: bool = False,
-):
+@functools.partial(jax.jit, static_argnames=("k", "cfg", "approx"))
+def _pq_search(state: PQState, q: jax.Array, k: int, cfg, approx: bool):
     """Full search: PQ scan (+ exact refine rerank when a refine store
     exists). Returns user-facing (scores, ids). cfg is the frozen PQConfig
-    (hashable — a static arg). approx=True with cfg.scan='pallas' takes the
-    fused ADC kernel (ops/pallas_pq.py); approx=False always takes the exact
-    top-k XLA pass (both remain approximate w.r.t. the original vectors —
+    (hashable — a static arg). approx selects approx_min_k or exact top_k
+    in the scan (both remain approximate w.r.t. the original vectors —
     PQ quantization; the refine rerank repairs ranking)."""
     metric, refine, rerank = cfg.metric, cfg.refine, cfg.rerank
     qs = D.preprocess_queries(q, metric)
@@ -213,19 +202,8 @@ def _pq_search(
     qr = PQ.apply_rotation(qs, state.rot)
     kk = k if refine == "none" else max(k * rerank, k)
 
-    if approx and cfg.scan == "pallas":
-        from ..ops.pallas_pq import pq_scan_topk
-
-        lut = PQ.adc_lut(qr, state.codebooks)
-        s1, i1 = pq_scan_topk(
-            lut, state.codes, state.norms, kk, l_bins=cfg.l_bins,
-            bq_tile=cfg.pallas_bq, chunk=cfg.pallas_chunk, metric=metric,
-            precision=cfg.scan_precision, per_bin=cfg.per_bin,
-            seg_rows=cfg.seg_rows, interpret=interpret)
-    else:
-        s1, i1 = _pq_scan(state, qr, kk, metric, cfg.tile_n, approx,
-                          cfg.recall_target, cfg.precision,
-                          packed=cfg.packed)
+    s1, i1 = _pq_scan(state, qr, kk, metric, cfg.tile_n, approx,
+                      cfg.recall_target, cfg.precision, packed=cfg.packed)
 
     if refine == "none":
         best_s, best_i = s1, i1
@@ -455,7 +433,7 @@ class PQFlatIndex:
     @classmethod
     def load(cls, path: str) -> "PQFlatIndex":
         z = np.load(path, allow_pickle=False)
-        cfg = PQConfig(**json.loads(str(z["cfg"])))
+        cfg = config_from_dict(PQConfig, json.loads(str(z["cfg"])))
         idx = cls(cfg)
         idx.capacity = int(z["capacity"])
         idx._trained = bool(z["trained"])
@@ -519,8 +497,8 @@ class PQFlatIndex:
         the graph engines' ef_search/search_degree. Each distinct value is
         its own compiled program.
 
-        approx=True (default): hardware partial-reduce top-k in the scan
-        pass. approx=False: full-sort selection over the PQ scores — both
+        approx=True (default): approx_min_k partial-reduce top-k in the
+        scan pass. approx=False: full-sort selection over the PQ scores — both
         are approximate relative to the original vectors (PQ quantization);
         the refine rerank (cfg.refine != "none") repairs ranking against the
         refine store.
@@ -557,10 +535,7 @@ class PQFlatIndex:
                 import dataclasses
 
                 cfg = dataclasses.replace(cfg, rerank=rerank)
-            s, i = _pq_search(
-                state, q, k, cfg, approx,
-                interpret=jax.default_backend() != "tpu",
-            )
+            s, i = _pq_search(state, q, k, cfg, approx)
         if squeeze:
             return s[0], i[0]
         return s, i

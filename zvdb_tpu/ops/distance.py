@@ -1,8 +1,9 @@
-"""Batched distance kernels in MXU (matmul) form.
+"""Batched distance kernels in matmul form.
 
-TPU-native replacement for the reference's scalar inner loop
-(reference src/hnsw.zig:182-192: squared-L2, element-by-element, panics on dim
-mismatch). Here every distance is a matrix product so the MXU does the FLOPs:
+Replacement for the reference's scalar inner loop (reference
+src/hnsw.zig:182-192: squared-L2, element-by-element, panics on dim
+mismatch). Here every distance is a matrix product so the tensor cores do
+the FLOPs:
 
     ||q - x||^2 = ||q||^2 - 2 q.x + ||x||^2
 
@@ -18,6 +19,7 @@ that contract for reported l2 values.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -25,6 +27,38 @@ import jax
 import jax.numpy as jnp
 
 NEG_INF = -jnp.inf
+
+# The one place the engines' precision names ("highest", "float32", "high",
+# "default") become what XLA is asked for: (matmul `precision=` argument,
+# jax.default_matmul_precision name). chip_smoke.py prints what "high"
+# lowers to on the card.
+#
+# "high" is full f32 (Precision.HIGHEST). The engines were tuned for a
+# ~1e-6-relative scoring matmul; on the GPU, Precision.HIGH runs as TF32
+# (10-bit mantissa), and a single-query dot then takes another path than
+# a batched one, so the same query's neighbours depended on the batch it
+# rode in (60 of 256 CAGRA queries at 1M). The bf16x3 algorithm preset is
+# not available to every dot on the CPU backend.
+_MATMUL_PRECISION = {
+    "highest": (jax.lax.Precision.HIGHEST, "highest"),
+    "float32": (jax.lax.Precision.HIGHEST, "highest"),
+    "high": (jax.lax.Precision.HIGHEST, "highest"),
+    "default": (jax.lax.Precision.DEFAULT, None),
+}
+
+
+def matmul_precision(name: str):
+    """The `precision=` argument for a matmul at engine precision `name`."""
+    return _MATMUL_PRECISION[name][0]
+
+
+def precision_context(name: str):
+    """Context in which un-annotated matmuls run at engine precision `name`
+    ("default" leaves the platform default in place)."""
+    ctx = _MATMUL_PRECISION[name][1]
+    if ctx is None:
+        return contextlib.nullcontext()
+    return jax.default_matmul_precision(ctx)
 
 
 def sq_norms(x: jax.Array) -> jax.Array:
@@ -105,10 +139,10 @@ def pairwise_scores(
 ) -> jax.Array:
     """Surrogate scores between query batch [B, D] and corpus [N, D] -> [B, N].
 
-    Smaller is better for every metric. One [B,D]x[D,N] matmul — this is the MXU
-    hot path for flat search and ground truth. `precision`: pass
-    jax.lax.Precision.HIGHEST for exact oracles (TPU matmuls default to bf16
-    inputs otherwise); leave None for the fast search path.
+    Smaller is better for every metric. One [B,D]x[D,N] matmul — the hot
+    path for flat search and ground truth. `precision`: pass
+    matmul_precision("highest") for exact oracles (f32 matmuls may otherwise
+    run at reduced precision); leave None for the fast search path.
     """
     dots = jnp.dot(
         q.astype(jnp.float32),

@@ -1,13 +1,13 @@
-"""Product quantization (PQ) ops: train / encode / decode, all in MXU form.
+"""Product quantization (PQ) ops: train / encode / decode, all in matmul form.
 
 The memory lever the int8 path can't reach: int8 stores D bytes/vector (128 B
 at 128d), PQ stores n_sub bytes/vector (16 B at n_sub=16) — 8x smaller, which
-is what makes 100M-vector configurations fit per chip (BASELINE config 5:
+is what makes 100M-vector configurations fit on one card (BASELINE config 5:
 100M x 16 B = 1.6 GB of codes vs 12.8 GB int8 / 51.2 GB f32).
 
-TPU-native formulation — the classical ADC scan is a per-row LUT gather,
-and XLA row-gathers are the measured pathology on this platform (~7-9 ns/row,
-row-count-bound). Instead every step here is a matmul:
+Matmul formulation — the classical ADC scan is a per-row LUT gather, and
+row gathers are the expensive operation on an accelerator. Instead every
+step here is a matmul:
 
   train : per-subspace Lloyd, vmapped over subspaces — assignment is a
           [m, C] distance matmul + argmin, the centroid update is the
@@ -46,7 +46,7 @@ def train_codebooks(
     cosine). Returns codebooks [n_sub, n_codes, D // n_sub] f32.
 
     All subspaces run one vmapped Lloyd loop: assignment is a distance
-    matmul + argmin, the update is onehot^T @ x — pure MXU work, no host
+    matmul + argmin, the update is onehot^T @ x — pure matmul work, no host
     round-trips. Empty clusters keep their previous centroid (same policy
     as the IVF k-means).
     """
@@ -97,7 +97,7 @@ def train_opq(
     Rotation init is a random orthogonal matrix (QR of a Gaussian): identity
     init can start at a coordinate-aligned local minimum on axis-correlated
     data, and the alternation recovers natural structure either way. Every
-    step is MXU work except the [D, D] SVD, which is negligible at D<=1024.
+    step is matmul work except the [D, D] SVD, which is negligible at D<=1024.
     The whole alternation is one jitted program (one remote compile).
     """
     m, d = xs.shape
@@ -187,11 +187,10 @@ def pack_nibbles(codes: jax.Array) -> jax.Array:
     """[B, S] uint8 codes (< 16) -> [B, S//2] packed bytes.
 
     Byte j holds subspace 2j in the LOW nibble and 2j+1 in the HIGH nibble
-    (the layout ops/pallas_pq.py's in-kernel one-hot extraction assumes).
-    S must be even. 4-bit codes halve PQ storage (16 B/vector at n_sub=32)
-    and are what makes the fused Pallas ADC scan MXU-shaped: 16 one-hot
-    columns per subspace keeps the effective scan width S*16 instead of
-    S*256 (the round-3 measured FLOP wall — VERDICT round 3 item 1).
+    (the layout ops/pq_grouped.py's one-hot decode assumes). S must be
+    even. 4-bit codes halve PQ storage (16 B/vector at n_sub=32), and 16
+    one-hot columns per subspace keep the ADC matmul width at S*16 instead
+    of S*256.
     """
     lo = codes[:, 0::2].astype(jnp.uint8)
     hi = codes[:, 1::2].astype(jnp.uint8)
@@ -212,7 +211,7 @@ def adc_lut(q: jax.Array, codebooks: jax.Array) -> jax.Array:
     lut[b, s, c] = q_s[b] . codebook[s, c].
 
     The asymmetric-distance scan is then scores[b, t] = sum_s
-    lut[b, s, codes[t, s]] (times -2 plus norms for l2). Tiny MXU work
+    lut[b, s, codes[t, s]] (times -2 plus norms for l2). Tiny matmul work
     (B*C*D FLOPs once per query batch) — the per-corpus-row cost lives in
     the scan kernel.
     """

@@ -1,7 +1,7 @@
 """Top-k primitives (smallest-score-first convention).
 
 Replaces the reference's per-query candidate heap + insertion sort
-(reference src/hnsw.zig:202-233) with dense batched top-k suitable for the VPU/MXU.
+(reference src/hnsw.zig:202-233) with dense batched top-k suitable for an accelerator.
 
 Convention everywhere: scores are "smaller is better" surrogates
 (see ops/distance.py); invalid entries carry +inf and ids carry -1.
@@ -39,10 +39,9 @@ def sort_smallest_k(scores: jax.Array, ids: jax.Array, k: int,
                     dedupe: bool = False):
     """Per-row k smallest via lax.sort — the fast path for WIDE batches.
 
-    MEASURED (v5e, [2.1M, 64] rows): lax.top_k ~1124 ms, a hand-built bitonic
-    network 275-497 ms, lax.sort **24 ms**. XLA's TPU sort is excellent; it is
-    top_k that degrades at huge-batch/narrow-row shapes — so the bulk-build
-    merges sort instead.
+    lax.top_k can degrade at huge-batch/narrow-row shapes where lax.sort
+    stays flat, so the bulk-build merges sort instead (the comparison is not
+    yet measured on the H100).
 
     Sorts by (score, id): deterministic, and exact duplicates (same id AND
     same score — e.g. a mutual edge arriving once as forward and once as
@@ -70,10 +69,10 @@ def sort_smallest_k(scores: jax.Array, ids: jax.Array, k: int,
 def bitonic_smallest_k(scores: jax.Array, ids: jax.Array, k: int):
     """Per-row k smallest via a bitonic sorting network — no lax.top_k.
 
-    MEASURED (v5e): lax.top_k on [2.1M, 48] costs ~1.0 s; this network costs
-    tens of ms (log^2(C) stages of static lane permutation + compare/select,
-    pure VPU). Use for WIDE batches of NARROW rows (C <= ~256) where top_k's
-    per-call cost dominates — the reverse-edge merge, beam merges. Exact:
+    log^2(C) stages of static lane permutation + compare/select, all
+    elementwise. Meant for WIDE batches of NARROW rows (C <= ~256) where
+    top_k's per-call cost dominates — the reverse-edge merge, beam merges.
+    Exact:
     full ascending sort of the padded row, then the first k columns.
 
     Ties break by smaller id (top_k breaks by position; callers that need
@@ -142,3 +141,28 @@ def mask_ids_in(scores: jax.Array, ids: jax.Array, banned: jax.Array):
     hit = jnp.any(ids[..., :, None] == banned[..., None, :], axis=-1)
     hit = hit & (ids >= 0)
     return jnp.where(hit, INF, scores), jnp.where(hit, -1, ids)
+
+
+def bin_fold(s: jax.Array, l_bins: int, per_bin: int = 1):
+    """Fold [..., n] scores (n a multiple of l_bins) into per-bin bests:
+    column c belongs to bin c % l_bins, and each bin keeps its best
+    (per_bin=1) or best two (per_bin=2) columns.
+
+    Returns ([..., per_bin * L] scores, [..., per_bin * L] int32 columns):
+    the first L hold each bin's best, the next L its runner-up. Ties keep
+    the lower column; bins with no finite score give +inf / -1. Plain
+    min/argmin reductions (no top_k), which XLA fuses."""
+    g = s.shape[-1] // l_bins
+    sr = s.reshape(*s.shape[:-1], g, l_bins)
+    lane = jax.lax.broadcasted_iota(jnp.int32, sr.shape[:-2] + (l_bins,),
+                                    sr.ndim - 2)
+    outs_s, outs_c = [], []
+    for _ in range(per_bin):
+        best = jnp.min(sr, axis=-2)
+        arg = jnp.argmin(sr, axis=-2).astype(jnp.int32)
+        outs_s.append(best)
+        outs_c.append(jnp.where(jnp.isfinite(best), arg * l_bins + lane, -1))
+        grp = jax.lax.broadcasted_iota(jnp.int32, sr.shape, sr.ndim - 2)
+        sr = jnp.where(grp == arg[..., None, :], INF, sr)
+    return jnp.concatenate(outs_s, axis=-1), jnp.concatenate(outs_c, axis=-1)
+

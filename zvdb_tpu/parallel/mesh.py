@@ -1,9 +1,11 @@
 """Device-mesh helpers.
 
-The TPU-native substrate for what the reference has none of: its entire
-concurrency story is std.Thread + mutexes in one address space
-(reference src/hnsw.zig:6,50; SURVEY.md §2.3). Here scale-out is a
-jax.sharding.Mesh with XLA collectives over ICI/DCN.
+The substrate for what the reference has none of: its entire concurrency
+story is std.Thread + mutexes in one address space (reference
+src/hnsw.zig:6,50; SURVEY.md §2.3). Here scale-out is a jax.sharding.Mesh
+with XLA collectives between the devices (NCCL over NVLink on a GPU host,
+where every device reaches every other at the same rate, so the mesh
+follows the algorithm alone).
 """
 from __future__ import annotations
 
@@ -31,54 +33,12 @@ def make_mesh(
     return Mesh(arr, (DATA_AXIS, SHARD_AXIS))
 
 
-def _group_by_slice(devs: Sequence) -> dict:
-    """Group devices by their TPU slice. Multi-slice (megascale/DCN)
-    runtimes expose `slice_index` on each device; single-slice and CPU
-    devices all land in slice 0."""
-    groups: dict = {}
-    for d in devs:
-        groups.setdefault(getattr(d, "slice_index", 0) or 0, []).append(d)
-    return groups
-
-
-def make_hybrid_mesh(
-    n_slices: Optional[int] = None,
-    devices: Optional[Sequence[jax.Device]] = None,
-) -> Mesh:
-    """(data, shard) mesh laid out for multi-slice deployments.
-
-    Axis semantics are chosen so the expensive collectives ride ICI:
-    the sharded engines partition the CORPUS on `shard` and the QUERY
-    BATCH on `data` (sharded.py), so every per-shard top-k all-gather
-    merge is a `shard`-axis collective. Mapping `shard` within a slice
-    (ICI, ~100s of GB/s) and `data` across slices (DCN, ~10s of GB/s)
-    means the only cross-slice traffic is the query scatter + final
-    [B/n_slices, k] results — O(B·D) per step, not O(S·B·k) merge
-    rounds. This is the standard hybrid-mesh recipe (DP outermost on
-    DCN), applied to search instead of training.
-
-    On a real multi-slice runtime the grouping comes from each device's
-    `slice_index`; on single-slice or CPU backends it falls back to an
-    even split into `n_slices` contiguous groups (the virtual-mesh test
-    path — collectives are simulated but the layout compiles the same).
-    """
-    devs = list(devices) if devices is not None else jax.devices()
-    groups = _group_by_slice(devs)
-    if len(groups) > 1:
-        sizes = {len(g) for g in groups.values()}
-        if len(sizes) != 1:
-            raise ValueError(f"uneven slices: {sorted(groups)} -> {sizes}")
-        if n_slices is not None and n_slices != len(groups):
-            raise ValueError(
-                f"n_slices={n_slices} but runtime reports {len(groups)} "
-                "slices; omit n_slices to use the hardware layout")
-        arr = np.array([groups[s] for s in sorted(groups)])
-        return Mesh(arr, (DATA_AXIS, SHARD_AXIS))
-    if n_slices is None or n_slices <= 0:
-        raise ValueError("single-slice backend: pass n_slices to emulate")
-    if len(devs) % n_slices:
-        raise ValueError(f"{len(devs)} devices not divisible by {n_slices}")
-    return make_mesh(n_data=n_slices, devices=devs)
+def shard_map(f, **kw):
+    """jax.shard_map with the varying-manual-axes check disabled: the
+    search/build kernels carry constant-initialized while_loop state, which
+    trips the vma type check even though every shard's control flow is
+    independent."""
+    return jax.shard_map(f, **kw, check_vma=False)
 
 
 def shard_spec() -> P:

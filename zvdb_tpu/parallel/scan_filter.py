@@ -15,12 +15,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 
 from ..ops import distance as D
 from ..ops import topk as T
-from .mesh import DATA_AXIS, SHARD_AXIS
+from .mesh import DATA_AXIS, SHARD_AXIS, shard_map
 
 INF = jnp.inf
 
@@ -33,10 +32,7 @@ def make_sharded_masked_scan(mesh, n_data: int, metric: str, precision: str,
     (the all-metric validity-bias convention); ext_ids < 0 rows never
     surface. All shard-axis inputs are P(SHARD_AXIS)-sharded; queries ride
     the data axis when the mesh has one."""
-    prec = {"highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "float32": jax.lax.Precision.HIGHEST,
-            "default": jax.lax.Precision.DEFAULT}[precision]
+    prec = D.matmul_precision(precision)
     qspec = P(DATA_AXIS) if n_data > 1 else P()
     ospec = P(DATA_AXIS if n_data > 1 else None, SHARD_AXIS)
 

@@ -1,15 +1,15 @@
 """Sharded index: corpus partitioned over a device mesh, per-shard graphs,
 query fan-out, all-gather top-k merge (BASELINE.json config 5; SURVEY.md §2.3).
 
-Design (TPU-native, scaling-book recipe):
+Design (scaling-book recipe):
   * The corpus axis N is partitioned into S shards — the expert-parallel analog
     for a vector DB (each shard ≈ an expert; every query visits all shards).
   * Each shard holds an independent HNSW graph over its subset; graph gathers
     never cross shards, so per-shard search runs under `shard_map` with zero
     communication.
   * Per-shard top-k results (global external ids) are merged by a plain jnp
-    top-k over the gathered [B, S*k] matrix — XLA inserts the all-gather over
-    ICI automatically from the sharding annotations.
+    top-k over the gathered [B, S*k] matrix — XLA inserts the all-gather
+    between devices automatically from the sharding annotations.
   * The query batch can additionally be sharded over a `data` mesh axis (DP).
   * Bulk build runs the same batched build step on every shard simultaneously
     (each device extends its own subgraph with its own slice — SPMD, no locks;
@@ -30,25 +30,7 @@ from ..index.hnsw import HNSWState, init_state, max_level_for, search_state_impl
 from ..ops import distance as D
 from ..ops import topk as T
 from ..utils.config import HNSWConfig, SearchConfig
-from .mesh import DATA_AXIS, SHARD_AXIS, make_mesh
-
-try:  # jax >= 0.4.35
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map  # type: ignore
-
-
-def shard_map(f, **kw):
-    """shard_map with the varying-manual-axes check disabled: the search/build
-    kernels carry constant-initialized while_loop state, which trips the vma
-    type check even though every shard's control flow is independent."""
-    for flag in ("check_vma", "check_rep"):
-        try:
-            return _shard_map(f, **kw, **{flag: False})
-        except TypeError:
-            continue
-    return _shard_map(f, **kw)
-
+from .mesh import DATA_AXIS, SHARD_AXIS, make_mesh, shard_map
 
 def _state_specs(state: HNSWState) -> HNSWState:
     """PartitionSpec pytree: every leaf carries a leading shard axis."""
@@ -495,7 +477,7 @@ class ShardedHNSW:
                            P(DATA_AXIS if self.n_data > 1 else None, SHARD_AXIS)),
             )(state, dead_mask, q)
             b = s.shape[0]
-            s = s.reshape(b, -1)       # [B, S*k] — XLA all-gathers over ICI
+            s = s.reshape(b, -1)       # [B, S*k] — XLA all-gathers these
             ext = ext.reshape(b, -1)
             # merge: smaller surrogate first; user scores for l2 ascend, for
             # dot/cosine descend — negate similarity to reuse ascending top-k

@@ -6,13 +6,12 @@ graphs, query fan-out, all-gather top-k merge; contrast reference
 src/hnsw.zig:74's global mutex):
 
   * search: cagra_search_impl per shard under shard_map — graph gathers never
-    cross shards; the [B, S*k] merge rides ICI via sharding-derived
-    all-gather.
+    cross shards; the [B, S*k] merge rides a sharding-derived all-gather.
   * incremental insert: round-robin routed, appended with the SAME jitted
     extend step as the single-chip engine (cagra._extend_batch_impl) run
     SPMD under shard_map — O(new) per insert, every shard extends its own
     subgraph simultaneously.
-  * bulk build: each shard's graph comes from the all-MXU cluster-kNN builder
+  * bulk build: each shard's graph comes from the all-matmul cluster-kNN builder
     (knn_graph.build_knn_graph). The builder is host-orchestrated (block
     packing bookkeeping runs on the host), so shard graphs are constructed
     one at a time and device_put into the stacked sharded layout — build is
@@ -39,7 +38,7 @@ from ..index.knn_graph import build_knn_graph_multi
 from ..ops import distance as D
 from ..ops import topk as T
 from .mesh import DATA_AXIS, SHARD_AXIS, make_mesh
-from .sharded import shard_map
+from .mesh import shard_map
 
 INF = jnp.inf
 
@@ -139,7 +138,7 @@ class ShardedCagra:
 
     # ------------------------------------------------------------------ build
     def build(self, x) -> None:
-        """Contiguous split across shards; per-shard all-MXU graph builds run
+        """Contiguous split across shards; per-shard all-matmul graph builds run
         PHASE-INTERLEAVED (knn_graph.build_knn_graph_multi): every shard's
         k-means/assignment/block-kNN work is dispatched — on its own mesh
         device on a real multi-chip backend — before the host blocks on any
@@ -442,8 +441,7 @@ class ShardedCagra:
             filter_mode = resolve_filter_mode(
                 "auto", allowed, self._n, alt="beam")
         # jnp, not np: device-resident query batches must not round-trip
-        # through the host (a 5 MB pull+re-upload through the relay costs
-        # ~80 ms and dominates the search itself)
+        # through the host
         q = jnp.atleast_2d(jnp.asarray(q, jnp.float32))
         if q.shape[-1] != self.cfg.dim:
             raise ValueError(

@@ -1,12 +1,10 @@
-"""Mesh-sharded brute-force search (TPU-KNN scaled out over ICI).
+"""Mesh-sharded brute-force search (the flat engine scaled out over a mesh).
 
-The 100M-vector configuration (BASELINE.json config 5) in its simplest, fastest
-form: vectors sharded over the mesh `shard` axis, every device scores its slice
-with dense MXU matmuls + hardware approx top-k, and the per-shard top-k merge
-rides an all-gather that XLA inserts from the sharding annotations. With
-bfloat16 storage a v5e-16 mesh holds ~2.5B 96-d vectors; per-chip QPS matches
-the single-chip flat engine because there is zero cross-shard traffic until the
-final [B, S*k] merge.
+The 100M-vector configuration (BASELINE.json config 5) in its simplest form:
+vectors sharded over the mesh `shard` axis, every device scores its slice
+with dense matmuls + approx top-k, and the per-shard top-k merge rides an
+all-gather that XLA inserts from the sharding annotations. There is zero
+cross-shard traffic until the final [B, S*k] merge.
 """
 from __future__ import annotations
 
@@ -20,9 +18,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..index.flat import FlatState
 from ..ops import distance as D
 from ..ops import topk as T
-from ..utils.config import FlatConfig
+from ..utils.config import FlatConfig, config_from_dict
 from .mesh import SHARD_AXIS, make_mesh
-from .sharded import shard_map
+from .mesh import shard_map
 
 
 class ShardedFlat:
@@ -220,7 +218,7 @@ class ShardedFlat:
 
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
-            cfg = FlatConfig(**meta["cfg"])
+            cfg = config_from_dict(FlatConfig, meta["cfg"])
             idx = cls(cfg, mesh=mesh)
             if idx.n_shards != meta["n_shards"]:
                 raise ValueError(
@@ -245,11 +243,7 @@ class ShardedFlat:
     def _make(self, k: int, approx: bool):
         cfg = self.cfg
         mesh = self.mesh
-        prec = {
-            "highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT,
-        }[cfg.precision]
+        prec = D.matmul_precision(cfg.precision)
 
         @jax.jit
         def run(vectors, norms, ids, q):
@@ -292,11 +286,7 @@ class ShardedFlat:
     def _make_range(self, max_results: int):
         cfg = self.cfg
         mesh = self.mesh
-        prec = {
-            "highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT,
-        }[cfg.precision]
+        prec = D.matmul_precision(cfg.precision)
         is_l2 = cfg.metric == "l2"
 
         @jax.jit

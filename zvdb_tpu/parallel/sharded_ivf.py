@@ -21,8 +21,8 @@ shard_map so every shard appends its own bucket simultaneously. Overflow falls
 back to a full rebuild from reconstructed vectors (ids stay stable: global ids
 are dense insertion order).
 
-Scaling: a v5e-16 mesh with bf16 blocks holds ~2.5B 96-d vectors; per-chip
-work is 1/S of the single-chip scan at matched total nprobe.
+Scaling: per-device work is 1/S of the single-device scan at matched total
+nprobe.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ from ..index.ivf import (
 )
 from ..ops import topk as T
 from .mesh import SHARD_AXIS, make_mesh
-from .sharded import shard_map
+from .mesh import shard_map
 
 
 class ShardedIVF:
@@ -260,7 +260,7 @@ class ShardedIVF:
         matched global budgets; exact single-chip equivalence would need
         centroid-score all-gather routing (one [B, C_global] matmul +
         cross-shard probe exchange) — rejected: it serializes every search
-        on a global top-p and ships probe lists over ICI for no measured
+        on a global top-p and ships probe lists between devices for no measured
         recall win at the tested scales.
 
         allowed: optional allowlist over global ids. filter_mode "auto"

@@ -7,22 +7,22 @@ shard so per-device ADC scan work balances). Each device holds a complete
 local IVFPQState over its clusters: packed 4-bit codes, decoded norms,
 LOCAL block ids, its clusters' refine rows (dense local-id order) and a
 local->global id map. Queries are replicated; every shard probes its own
-top `ceil(nprobe/S)+1` local clusters with the grouped fused ADC kernel
-(ops/pallas_pq.py:pq_grouped_scan_bins), refines against its LOCAL store
+top `ceil(nprobe/S)+1` local clusters with the grouped ADC scan
+(ops/pq_grouped.py:pq_grouped_scan_bins), refines against its LOCAL store
 (zero cross-shard gathers), and the per-shard top-k merge is one
 all-gather + exact top-k derived from the sharding annotations.
 
-Memory: at the measured 30M x 96d config (48 nibble codes + int16 refine =
-224 B/row) a v5e-16 mesh holds ~1.2B rows; the scan cost per chip is 1/S of
-the single-chip engine at matched global nprobe.
+Memory: at the 30M x 96d config (48 nibble codes + int16 refine = 224 B/row)
+each device holds 1/S of the rows; the scan cost per device is 1/S of the
+single-device engine at matched global nprobe.
 
 Filtered search defaults to the EXACT masked scan over the per-shard refine
-stores (parallel/scan_filter.py — the round-4 measured policy; probe-pool
-filtering collapses on selective filters), filter_mode="probe" keeps the
+stores (parallel/scan_filter.py; probe-pool filtering collapses on
+selective filters), filter_mode="probe" keeps the
 in-pool filter.
 
 No reference counterpart: the reference is single-address-space
-(src/hnsw.zig:6,50); this extends its capability axes the TPU way
+(src/hnsw.zig:6,50); this extends its capability axes across devices
 (SURVEY.md §2.3).
 """
 from __future__ import annotations
@@ -43,7 +43,7 @@ from ..ops import distance as D
 from ..ops import topk as T
 from .mesh import SHARD_AXIS, make_mesh
 from .scan_filter import make_sharded_masked_scan
-from .sharded import shard_map
+from .mesh import shard_map
 
 INF = jnp.inf
 
@@ -184,7 +184,6 @@ class ShardedIVFPQ:
               with_allow: bool):
         cfg = self.cfg
         mesh = self.mesh
-        interp = jax.default_backend() != "tpu"
         specs = jax.tree.map(lambda _: P(SHARD_AXIS), self.state)
 
         @jax.jit
@@ -196,7 +195,7 @@ class ShardedIVFPQ:
                     cfg.l_bins, cfg.chunk, cfg.per_bin, cfg.scan_precision,
                     cfg.group_slack,
                     allowed=al[0] if with_allow else None,
-                    id_map=im[0], c_mask=cm[0], interpret=interp)
+                    id_map=im[0], c_mask=cm[0])
                 return s_[:, None, :], i_[:, None, :]
 
             s_, i_ = shard_map(

@@ -3,15 +3,12 @@
 PQ is the memory-scaling engine (codes are n_sub bytes/vector, ops/pq.py);
 sharding it over the mesh `shard` axis is what makes BASELINE config 5
 (100M vectors) comfortable: at n_sub=16 + int8 refine, 100M rows are
-~12 GB TOTAL across a v5e-16 mesh (~0.75 GB/chip) vs 7.7 GB/chip for the
-single-chip int8 IVF index at 10M.
+~12 GB in total, spread over the mesh's devices.
 
 Design mirrors ShardedFlat (sharded_flat.py): codes/norms/refine/ids are
 sharded on `shard`, codebooks are replicated (they are KB-scale), every
-device scans its slice — cfg.scan="pallas" runs the fused 4-bit ADC
-kernel (ops/pallas_pq.py; the round-4 fast path, 5x the XLA decode-scan
-at 1M) per shard, "xla" the gather-free decode-tile scan
-(index/pqflat.py:_pq_scan) — reranks its own candidates against its LOCAL refine store
+device scans its slice with the gather-free decode-tile scan
+(index/pqflat.py:_pq_scan), reranks its own candidates against its LOCAL refine store
 (zero cross-shard gathers — the refine row fetch stays on-chip), and the
 per-shard exact top-k merge rides the all-gather XLA inserts from the
 sharding annotations.
@@ -24,7 +21,7 @@ sharded recall at a given config is >= the single-chip number (same
 relationship as ShardedIVF's per-shard probe widening, sharded_ivf.py).
 
 No reference counterpart: the reference is single-address-space
-(src/hnsw.zig:6,50); this extends its capability axes the TPU way
+(src/hnsw.zig:6,50); this extends its capability axes across devices
 (SURVEY.md §2.3).
 """
 from __future__ import annotations
@@ -40,9 +37,9 @@ from ..index.pqflat import PQState, _pq_scan
 from ..ops import distance as D
 from ..ops import pq as PQ
 from ..ops import topk as T
-from ..utils.config import PQConfig
+from ..utils.config import PQConfig, config_from_dict
 from .mesh import SHARD_AXIS, make_mesh
-from .sharded import shard_map
+from .mesh import shard_map
 
 
 class ShardedPQFlat:
@@ -355,7 +352,7 @@ class ShardedPQFlat:
 
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
-            cfg = PQConfig(**meta["cfg"])
+            cfg = config_from_dict(PQConfig, meta["cfg"])
             idx = cls(cfg, mesh=mesh)
             if idx.n_shards != meta["n_shards"]:
                 raise ValueError(
@@ -416,9 +413,6 @@ class ShardedPQFlat:
     def _make(self, k: int, approx: bool, rerank: int):
         cfg = self.cfg
         mesh = self.mesh
-        # pallas kernels need interpret mode off-TPU (same gate as the
-        # single-chip engine, index/pqflat.py)
-        interp = jax.default_backend() != "tpu"
 
         @jax.jit
         def run(codes, norms, refine, r_scales, ids, codebooks, rot, q):
@@ -431,30 +425,12 @@ class ShardedPQFlat:
                 c, nn, rv, rs, ii = c[0], nn[0], rv[0], rs[0], ii[0]
                 cap = c.shape[0]
                 pool = max(k * rerank, k) if cfg.refine != "none" else k
-                if approx and cfg.scan == "pallas":
-                    # Fused 4-bit ADC kernel per shard (ops/pallas_pq.py).
-                    # The shard store keeps the portable [per, n_sub] byte
-                    # layout; pack+transpose here costs 48 B/row of HBM
-                    # traffic per call — noise next to the MXU-bound scan
-                    # (PERF.md round-4: the kernel is FLOP-bound, and the
-                    # XLA decode-scan it replaces measured 5x slower at 1M).
-                    from ..ops.pallas_pq import pq_scan_topk
-
-                    lut = PQ.adc_lut(qr, cb)
-                    ps, pi = pq_scan_topk(
-                        lut, PQ.pack_nibbles(c).T, nn, pool,
-                        l_bins=cfg.l_bins, bq_tile=cfg.pallas_bq,
-                        chunk=cfg.pallas_chunk, metric=cfg.metric,
-                        precision=cfg.scan_precision, per_bin=cfg.per_bin,
-                        seg_rows=cfg.seg_rows, interpret=interp)
-                else:
-                    st = PQState(codes=c, norms=nn, codebooks=cb,
-                                 rot=jnp.zeros((0, 0), jnp.float32),
-                                 refine=rv, r_scales=rs,
-                                 n=jnp.asarray(cap, jnp.int32))
-                    ps, pi = _pq_scan(st, qr, pool, cfg.metric, cfg.tile_n,
-                                      approx, cfg.recall_target,
-                                      cfg.precision)
+                st = PQState(codes=c, norms=nn, codebooks=cb,
+                             rot=jnp.zeros((0, 0), jnp.float32),
+                             refine=rv, r_scales=rs,
+                             n=jnp.asarray(cap, jnp.int32))
+                ps, pi = _pq_scan(st, qr, pool, cfg.metric, cfg.tile_n,
+                                  approx, cfg.recall_target, cfg.precision)
                 if cfg.refine != "none":
                     safe = jnp.maximum(pi, 0)
                     cand = jnp.take(rv, safe, axis=0).astype(jnp.float32)

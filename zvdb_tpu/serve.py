@@ -1,10 +1,10 @@
 """Serving layer: concurrent micro-batching query scheduler.
 
 The reference is a library with a global mutex — concurrent callers serialize
-and each search runs alone (reference src/hnsw.zig:195). On TPU the economics
-invert: a single query costs nearly as much wall-clock as 10k queries (the
-device round-trip floor is ~28 ms here), so the server's job is to COALESCE
-concurrent callers into one device batch.
+and each search runs alone (reference src/hnsw.zig:195). On an accelerator
+the economics invert: a single query costs nearly as much wall-clock as a
+large batch (every dispatch pays a fixed launch and sync cost), so the
+server's job is to COALESCE concurrent callers into one device batch.
 
 `SearchServer` collects requests from any number of threads into a pending
 buffer; a dispatcher thread flushes the buffer when it reaches `max_batch` or

@@ -4,7 +4,7 @@ timers in its bench runners; this provides device traces + phase timing).
 Usage:
     from zvdb_tpu.utils.profiling import trace, Phase
 
-    with trace("/tmp/zvdb_trace"):          # XLA device trace (TensorBoard)
+    with trace(trace_dir):          # XLA device trace (TensorBoard)
         idx.search(q, 10)
 
     with Phase("build") as p:               # wall-clock phase timing
@@ -85,7 +85,8 @@ class PhaseRecorder:
 
 def live_buffer_bytes() -> int:
     """Total bytes of live device buffers (the buffer-donation / leak check —
-    the TPU analog of the reference's allocator leak tests, SURVEY.md §4)."""
+    the accelerator analog of the reference's allocator leak tests,
+    SURVEY.md §4)."""
     total = 0
     for d in jax.live_arrays():
         total += d.nbytes
